@@ -24,19 +24,16 @@ def setup_jax(force_cpu_devices: int | None = None):
             # virtual devices CONTEND for the host's few cores, so threads
             # reach each collective minutes apart at 10M+ points; XLA:CPU's
             # default rendezvous watchdog (40 s termination) would kill the
-            # run. Raise it -- a validation-host knob only; real ICI meshes
-            # run devices in parallel and never come near the default.
+            # run. Raise it -- a virtual-mesh knob only; real devices run
+            # in parallel and never come near the default.
             + " --xla_cpu_collective_call_terminate_timeout_seconds=14400"
             + " --xla_cpu_collective_call_warn_stuck_timeout_seconds=600"
             + " --xla_cpu_collective_timeout_seconds=14400"
         ).strip()
         jax.config.update("jax_platforms", "cpu")
-    try:
-        base = os.environ.get("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
-        plat = "cpu" if force_cpu_devices else "dev"
-        jax.config.update("jax_compilation_cache_dir", f"{base}-{plat}")
-    except Exception:
-        pass
+    from vtkcloudpoint_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
     return jax
 
 

@@ -94,12 +94,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                                         "/tmp/jaxcache") + "-dev")
-    except Exception:
-        pass
+    from vtkcloudpoint_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
     from vtkcloudpoint_tpu.cluster.blocks import partition_gather_sorted
     from vtkcloudpoint_tpu.cluster.dbscan import (
         dbscan_blocks_dispatch, resolve_backend)
@@ -176,8 +173,7 @@ def main():
         centers = stats["center3d"]
         cvalid = stats["count"] > 0
         res = icp(centers, cvalid, truth, truth_valid,
-                  ICPConfig(max_iterations=50), chunk=1024,
-                  backend=backend)
+                  ICPConfig(max_iterations=50), chunk=1024)
         # bucket overflow excludes row 0: the noise bucket always exceeds
         # cluster capacity and has no shape anyway
         return (label, n_total, fused["noise_overflow"],

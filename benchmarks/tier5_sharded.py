@@ -187,8 +187,8 @@ def main():
             rec["weak_scaling_eff"] = round(base_t / dt, 3)
         emit(**rec)
         # analytic per-device collective payload for THIS config, so the
-        # real-pod expectation is stated: ICI moves these bytes, however
-        # fast the virtual-mesh host happens to be.
+        # expectation on real devices is stated: the interconnect moves
+        # these bytes, however fast the virtual-mesh host happens to be.
         # The fusion renumber now exchanges ONE kept-count int32 per device
         # (block_keep_rules is per-block-local; offsets are a scalar prefix
         # sum) -- the r4 design's [B, kmax] counts all_gather was

@@ -144,8 +144,9 @@ def test_dense_chunked_matches_padded():
 
 def test_dense_chunked_components_match_grid():
     """min_pts=1 components (the _hier_union stage-1 contract): the
-    chunked-dense engine and the grid engine agree label-for-label, so the
-    TPU stage-1 dispatch in parallel.sharded is a drop-in."""
+    chunked-dense engine and the grid engine agree label-for-label, so
+    either policy choice of the stage-1 engine in parallel.sharded is a
+    drop-in."""
     import numpy as np
     import jax.numpy as jnp
     from vtkcloudpoint_tpu.cluster.dbscan import dbscan_dense_chunked

@@ -108,8 +108,7 @@ def test_icp_grid_matches_brute_icp():
     tgt = (src @ r.T + np.float32([0.3, -0.2, 0.1]))
     valid = jnp.ones(400, bool)
     cfg = ICPConfig(max_iterations=40)
-    res_b = icp(jnp.asarray(src), valid, jnp.asarray(tgt), valid, cfg,
-                backend="jnp")
+    res_b = icp(jnp.asarray(src), valid, jnp.asarray(tgt), valid, cfg)
     res_g, overflow = icp_grid(jnp.asarray(src), valid, jnp.asarray(tgt),
                                valid, cfg, cell_size=1.0, cell_cap=64,
                                fallback_cap=400)

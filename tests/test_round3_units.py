@@ -1,4 +1,4 @@
-"""Round-3 primitives: capacity sizing, equilibrated solves, MXU segment
+"""Round-3 primitives: capacity sizing, equilibrated solves, matmul segment
 sums, grid-metric dispatch."""
 import numpy as np
 import jax

@@ -1,5 +1,5 @@
-"""Round-5 primitives: O(boundary) fusion renumber equivalence, gid-bound
-guard derivation, auto noise-engine fallback for grid-less metrics."""
+"""Round-5 primitives: O(boundary) fusion renumber equivalence, auto
+noise-engine fallback for grid-less metrics."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -41,29 +41,6 @@ def test_local_renumber_matches_global(quirks, mcs):
         want = np.asarray(gid_g)[rows]
         got = gid_cum + offsets[d]
         assert (got[keep_l] == want[keep_l]).all()
-
-
-@pytest.mark.parametrize("quirks", [False, True])
-def test_gid_bound_covers_worst_case(quirks):
-    """gid_bound must upper-bound the actual kept-cluster count for ANY
-    count table, including min_cluster_size <= 2 (ADVICE r4 medium: the
-    old guard hardcoded the >= 4-points-per-cluster assumption)."""
-    from vtkcloudpoint_tpu.cluster.fusion import (
-        block_keep_renumber, gid_bound,
-    )
-
-    rng = np.random.default_rng(1)
-    for mcs in (0, 1, 2, 3):
-        for _ in range(4):
-            B, cap = 8, 12
-            # adversarial: many tiny runs
-            labels = rng.integers(0, cap + 1, size=(B, cap))
-            counts = np.zeros((B, cap + 1), np.int32)
-            for b in range(B):
-                np.add.at(counts[b], labels[b], 1)
-            _, _, n_kept = block_keep_renumber(jnp.asarray(counts), mcs,
-                                               quirks)
-            assert int(n_kept) <= gid_bound(B, cap, mcs, quirks)
 
 
 def test_merge_blocks_auto_engine_gridless_metric():

@@ -1,5 +1,5 @@
 """Multi-device shard_map paths vs single-device results (8 virtual CPU
-devices; the real-TPU multi-chip path is validated by dryrun_multichip)."""
+devices; on four GPUs the sharded path runs in chip_smoke.py --four)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -71,6 +71,27 @@ def test_sharded_icp_matches_single(mesh):
     # same trajectory: identical iteration count and near-identical error
     assert int(it) == int(single.iterations)
     np.testing.assert_allclose(np.asarray(r), np.asarray(single.r), atol=1e-9)
+
+
+def test_sharded_icp_error_matches_single_f32(mesh):
+    """float32 on a dense patch, where the residuals of the fit are as small
+    as the rounding of the |p|^2 - 2py + |y|^2 expansion the neighbours are
+    ranked by: both paths must read the error from the matched pairs'
+    differences, so the two readings agree (the expansion's read ~3x low)."""
+    rng = np.random.default_rng(0)
+    n = 4096
+    tgt = np.concatenate([0.5 + 0.02 * rng.uniform(size=(n, 2)),
+                          np.zeros((n, 1))], 1).astype(np.float32)
+    r_true = np.asarray(se3.rotz(0.02), np.float32)
+    src = ((tgt - np.float32([2e-3, -1e-3, 5e-4])) @ r_true)[
+        rng.permutation(n)]
+    ones = jnp.ones(n, bool)
+    cfg = ICPConfig(max_iterations=30)
+    _, _, d, it = sharded_icp(mesh, jnp.asarray(src), ones, jnp.asarray(tgt),
+                              ones, cfg)
+    single = icp(jnp.asarray(src), ones, jnp.asarray(tgt), ones, cfg)
+    assert int(it) == int(single.iterations)
+    np.testing.assert_allclose(float(d), float(single.error), rtol=0.05)
 
 
 def test_sharded_halo_merge_matches_single(mesh):
@@ -305,7 +326,7 @@ def test_sharded_icp_grid_matches_single_device(mesh):
                                rtol=0, atol=2e-5)
     np.testing.assert_allclose(np.asarray(r_s), r_true, atol=2e-3)
     np.testing.assert_allclose(np.asarray(t_s), t_true, atol=2e-3)
-    # the brute per-shard locator (the TPU-first auto choice) is exact too
+    # the brute per-shard locator (the policy's other choice) is exact too
     r_b, t_b, _, _, ovf_b = sharded_icp_grid(
         mesh, jnp.asarray(src), jnp.ones(n, bool), jnp.asarray(tgt),
         jnp.ones(m, bool), cfg, cell_size=cell, chunk=512, nn="brute")
@@ -317,8 +338,8 @@ def test_sharded_icp_grid_matches_single_device(mesh):
 
 
 def test_sharded_noise_local_engine_dense_matches_grid(mesh):
-    """The distributed re-cluster's dense-chunked local engine (the TPU
-    path) is bit-equal to the grid local engine (the CPU path)."""
+    """The distributed re-cluster's dense-chunked local engine is
+    bit-equal to the grid local engine (the policy's choice today)."""
     rng = np.random.default_rng(17)
     motor = make_blobs(rng, n_clusters=8, pts_per=40, noise=200,
                        spread=0.012)

@@ -19,9 +19,9 @@ Two modes:
    and ties in the L-inf sort break by point index (stable). The NumPy oracle
    implements the same spec; bit-compatibility is engine==oracle.
 
-2. ``assign_blocks_balanced`` -- TPU-fast mode: Morton-order sort chunked
+2. ``assign_blocks_balanced`` -- fast mode: Morton-order sort chunked
    into exactly-full blocks. Perfectly load-balanced (no overflow), spatially
-   coherent, and shape-static, which is what the MXU/VPU want.
+   coherent, and shape-static.
 """
 from __future__ import annotations
 
@@ -132,9 +132,8 @@ def partition_gather_sorted(motor, valid, capacity: int, max_blocks: int,
     sort: the Morton code carries (coords..., index) as sort payloads, so
     the blocked coordinate layout falls out of the sort with NO gather.
 
-    On TPU the separate path costs an argsort (~1 ms at 500k) plus a
-    ~1M-row random gather (~2 ms); lax.sort moves the same rows in
-    ~0.4 ms (probe2/3_r04). Identical outputs to the two-step path
+    The separate path costs an argsort plus a ~1M-row random gather;
+    lax.sort moves the same rows as payload. Identical outputs to the two-step path
     (tested): (block_coords [B, cap, D], block_valid [B, cap],
     point_index [B, cap] i32 with -1 padding, overflow [1]).
 

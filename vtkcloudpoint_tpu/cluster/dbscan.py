@@ -1,7 +1,7 @@
-"""DBSCAN as data-parallel label propagation (TPU-native).
+"""DBSCAN as data-parallel label propagation.
 
-The reference clusters with a sequential BFS (DBImproved.cs:56-114). On TPU we
-reformulate it as fixpoint label propagation + pointer jumping, which is
+The reference clusters with a sequential BFS (DBImproved.cs:56-114). Here it
+is reformulated as fixpoint label propagation + pointer jumping, which is
 embarrassingly parallel and converges in O(log diameter) sweeps -- then a
 deterministic renumbering pass reproduces the reference's exact ID assignment
 (SURVEY.md §7 L3 hard part (a)).
@@ -122,15 +122,13 @@ def dbscan_dense_chunked(
 ):
     """dbscan_padded semantics at sizes where the [n, n] adjacency cannot
     be stored (4 GB at n=32k): every pass recomputes pairwise distances in
-    [chunk, n] row tiles on the VPU instead of gathering through a grid.
+    [chunk, n] row tiles instead of gathering through a grid.
 
-    On TPU this is the right mid-size engine: the grid engine's stencil
-    candidates are random gathers (~10M/s on v5e -- a 65k-point re-cluster
-    measured in SECONDS), while recomputing 65k^2 L1 distances is a few
-    GFLOP of dense vector work per sweep. Sweep count is O(log diameter)
-    thanks to pointer jumping, so total work is ~(2 + log d) full distance
-    passes. Bit-identical to dbscan_padded (same rules 1-5, same label
-    convention); tested against it in tests/test_dbscan.py.
+    Every sweep is dense vector work with no gathers. Sweep count is
+    O(log diameter) thanks to pointer jumping, so total work is
+    ~(2 + log d) full distance passes. Bit-identical to dbscan_padded
+    (same rules 1-5, same label convention); tested against it in
+    tests/test_dbscan.py.
     """
     n = coords.shape[0]
     chunk = min(chunk, n)
@@ -212,7 +210,7 @@ def dbscan_blocks(
 ):
     """Run DBSCAN independently over B padded blocks.
 
-    TPU-native analog of the reference's per-cell ThreadPool fan-out
+    Data-parallel analog of the reference's per-cell ThreadPool fan-out
     (FrmMain.cs:1340-1361, StartCode :2782-2794): each block clusters with
     local ids 1..k_b; the cross-block merge assigns global ids (fusion.py).
 
@@ -230,20 +228,21 @@ def dbscan_blocks(
 
 
 def resolve_backend(backend: str = "auto") -> str:
-    """Kernel-dispatch policy: 'pallas' on a real TPU, 'jnp' elsewhere.
+    """Per-block DBSCAN engine: "cuda" (the Hopper kernel) or "jnp".
 
-    'auto' picks the hand-written Pallas kernels only where they compile to
-    Mosaic (a TPU backend); on CPU/GPU the jnp path is both the faster and
-    the tested one. Explicit 'pallas'/'jnp' force a path (the pallas kernels
-    fall back to interpret mode off-TPU -- slow, for debugging only).
+    "auto" takes the platform policy's choice (the kernel on a GPU, the
+    plain path on a CPU). An explicit "cuda" on a machine without a GPU
+    raises: the kernel has no interpret mode and no silent fallback.
     """
     if backend == "auto":
-        try:
-            return "pallas" if jax.devices()[0].platform == "tpu" else "jnp"
-        except Exception:  # pragma: no cover
-            return "jnp"
-    if backend not in ("pallas", "jnp"):
+        from ..policy import policy
+
+        return policy().dbscan_blocks
+    if backend not in ("cuda", "jnp"):
         raise ValueError(f"unknown backend {backend!r}")
+    if backend == "cuda" and jax.default_backend() != "gpu":
+        raise RuntimeError("backend='cuda' needs a GPU; this process runs "
+                           f"on {jax.default_backend()!r}")
     return backend
 
 
@@ -257,29 +256,22 @@ def dbscan_blocks_dispatch(
     chunk: int = 64,
     backend: str = "auto",
 ):
-    """Backend-dispatched per-block DBSCAN (VERDICT r1 item 1).
+    """Backend-dispatched per-block DBSCAN, same contract as dbscan_blocks.
 
-    Same contract as dbscan_blocks; on TPU routes to the fused VMEM Pallas
-    kernel (ops.pallas.dbscan_kernel), which is bit-equal by test.
+    The CUDA kernel (cluster.dbscan_cuda) serves float32 2-D blocks of
+    capacity <= 1024 under l1_motor and signed_sum_xy and is bit-equal to
+    the plain path there; "auto" sends any other block shape or metric
+    (l2_xyz's distance goes through a matmul whose summation order the
+    kernel cannot reproduce) to the plain path, an explicit "cuda" raises.
+    The kernel runs every block to its fixpoint; ``max_iters`` and
+    ``chunk`` bound the plain path only.
     """
-    if resolve_backend(backend) == "pallas":
-        cap = coords.shape[1]
-        if cap <= 512:
-            from ..ops.pallas.dbscan_kernel import (
-                dbscan_blocks_pallas_batched)
+    engine = resolve_backend(backend)
+    if engine == "cuda":
+        from .dbscan_cuda import dbscan_blocks_cuda, kernel_supports
 
-            # 8 blocks per grid step amortizes the ~1.3 us fixed
-            # per-step cost (probe_dbscan_r05: 6.3 -> 5.2 ms at 977
-            # cap-512 blocks; G=16/32 measured no further gain);
-            # bit-equal to the one-block kernel by construction and by
-            # test. At cap >= 1024 a member's ~3 [cap, cap] f32 arrays
-            # are ~12 MB and even G=2 fails Mosaic's 16 MB VMEM scope
-            # (measured: compile-helper exit 1) -- and with 4x the work
-            # per step the fixed cost is already amortized, so the
-            # one-block kernel serves large caps.
-            return dbscan_blocks_pallas_batched(coords, valid, eps,
-                                                min_pts, metric, group=8)
-        from ..ops.pallas.dbscan_kernel import dbscan_blocks_pallas
-
-        return dbscan_blocks_pallas(coords, valid, eps, min_pts, metric)
+        _, cap, nd = coords.shape
+        if backend == "cuda" or kernel_supports(cap, nd, metric,
+                                                coords.dtype):
+            return dbscan_blocks_cuda(coords, valid, eps, min_pts, metric)
     return dbscan_blocks(coords, valid, eps, min_pts, metric, max_iters, chunk)

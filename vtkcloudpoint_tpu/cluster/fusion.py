@@ -1,7 +1,7 @@
 """Cross-block cluster fusion: global renumbering, small-cluster cull, noise
 re-cluster, and centroid-distance merge.
 
-TPU-native equivalent of the reference merge pipeline:
+Data-parallel equivalent of the reference merge pipeline:
 - CompleteWork3 (FrmMain.cs:1432-1544): per-cell sort by local id, sequential
   global renumber, <=3-point cluster cull, then a second DBSCAN over all
   remaining noise seeded with the next free id to recover clusters split
@@ -39,50 +39,17 @@ import jax.numpy as jnp
 from .dbscan import dbscan_padded
 
 
-def _on_tpu() -> bool:
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:  # pragma: no cover
-        return False
-
-
-def _block_label_counts(block_labels, block_valid, kmax: int,
-                        row_chunk: int = 64):
-    """[B, kmax] occurrence counts of local label c in block b.
-
-    TPU: a chunked compare+reduce over the id axis -- 0.57 ms at the bench
-    shape vs 4.66 ms for the flat segment_sum scatter (probe_stages_r04;
-    XLA TPU scatters run ~100M updates/s while the VPU chews the
-    [chunk, kmax, cap] compare lattice at memory speed). Elsewhere: the
-    scatter-add segment_sum, which is O(n) and right for CPU. (A per-block
-    sort+searchsorted variant was probed in round 3 and lost 14x -- XLA
-    TPU sorts along the lane axis serialize.)
-    """
+def _block_label_counts(block_labels, block_valid, kmax: int):
+    """[B, kmax] occurrence counts of local label c in block b: one flat
+    scatter-add segment_sum, O(n). (A chunked compare+reduce over the id
+    axis measured 2.5x slower on the H100 at the bench shape.)"""
     B = block_labels.shape[0]
-    if not _on_tpu():
-        flat_seg = (
-            jnp.arange(B, dtype=jnp.int32)[:, None] * kmax + block_labels
-        ).reshape(-1)
-        w = block_valid.reshape(-1).astype(jnp.int32)
-        return jax.ops.segment_sum(
-            w, flat_seg, num_segments=B * kmax).reshape(B, kmax)
-
-    cap = block_labels.shape[1]
-    ids = jnp.arange(kmax, dtype=block_labels.dtype)
-
-    def step(args):
-        lb, vl = args
-        return jnp.sum(
-            (lb[:, None, :] == ids[None, :, None]) & vl[:, None, :],
-            axis=2, dtype=jnp.int32)
-
-    chunk = min(row_chunk, B)
-    pad = (-B) % chunk
-    lp = jnp.pad(block_labels, ((0, pad), (0, 0)), constant_values=0)
-    vp = jnp.pad(block_valid, ((0, pad), (0, 0)))
-    out = jax.lax.map(step, (lp.reshape(-1, chunk, cap),
-                             vp.reshape(-1, chunk, cap)))
-    return out.reshape(-1, kmax)[:B]
+    flat_seg = (
+        jnp.arange(B, dtype=jnp.int32)[:, None] * kmax + block_labels
+    ).reshape(-1)
+    w = block_valid.reshape(-1).astype(jnp.int32)
+    return jax.ops.segment_sum(
+        w, flat_seg, num_segments=B * kmax).reshape(B, kmax)
 
 
 def block_keep_rules(counts, min_cluster_size: int, quirks: bool):
@@ -133,64 +100,17 @@ def block_keep_renumber(counts, min_cluster_size: int, quirks: bool):
     return keep, gid, n_kept
 
 
-def gid_bound(n_blocks: int, cap: int, min_cluster_size: int,
-              quirks: bool) -> int:
-    """Static upper bound on the largest global cluster id the cull can
-    keep: every kept run has > min_cluster_size points, except (quirks)
-    the last run of each block which can be arbitrarily small -- at most
-    one extra id per block. Used to guard f32-exactness of the one-hot
-    matmul id application (ADVICE r4 medium: the old Bl*cap/4 guard
-    silently assumed min_cluster_size >= 3)."""
-    per_run = max(min_cluster_size + 1, 1)
-    bound = n_blocks * cap // per_run
-    return bound + n_blocks if quirks else bound
-
-
-def apply_block_gid(block_labels, block_valid, keep, gid,
-                    row_chunk: int = 64, max_gid: int = None):
-    """Point-level global ids [Bl, cap] from the keep/renumber tables.
+def apply_block_gid(block_labels, block_valid, keep, gid):
+    """Point-level global ids [Bl, cap] from the keep/renumber tables, by
+    one flat gather from the [Bl * kmax] table (a batched one-hot matmul
+    measured 1.7x slower on the H100 at the bench shape).
 
     ``keep``/``gid`` rows must correspond to ``block_labels`` rows (the
     sharded path computes its device's rows locally + a prefix offset).
     Culled or noise points map to 0.
-
-    TPU: a batched one-hot matmul -- out[b, c] = sum_k 1[label==k]*gid[b,k]
-    rides the MXU at 1.09 ms vs 7.53 ms for the flat per-point gather
-    (probe2_r04; random gathers from a [B*kmax] table run ~130M/s on v5e).
-    Exact while gid < 2^24 (f32 products are the original int values);
-    guarded by ``max_gid`` -- a static bound on the largest gid value any
-    row can hold (callers derive it from min_cluster_size via gid_bound();
-    the sharded path passes the GLOBAL bound since its gids carry a
-    cross-device offset). None falls back to the conservative local bound
-    gid_bound(Bl, cap, 3, True). Beyond 2^24 the flat-gather path takes
-    over (exact at any id width). Elsewhere: the flat 1D gather (2D
-    advanced indexing lowers to a slow general-gather on TPU, and CPU
-    gathers are already O(n)).
     """
     Bl, cap = block_labels.shape
     kmax = cap + 1
-    if max_gid is None:
-        max_gid = gid_bound(Bl, cap, 3, True)
-    if _on_tpu() and max_gid < 2**24:
-        gk = jnp.where(keep, gid, 0).astype(jnp.float32)
-
-        def step(args):
-            lb, gkc = args
-            ids = jnp.arange(1, kmax, dtype=lb.dtype)
-            oh = (lb[:, :, None] == ids[None, None, :]).astype(jnp.float32)
-            return jax.lax.dot_general(
-                oh, gkc[:, :, None], (((2,), (1,)), ((0,), (0,))),
-                precision=jax.lax.Precision.HIGHEST)[..., 0]
-
-        chunk = min(row_chunk, Bl)
-        pad = (-Bl) % chunk
-        lp = jnp.pad(block_labels, ((0, pad), (0, 0)), constant_values=0)
-        gp = jnp.pad(gk, ((0, pad), (0, 0)))
-        out = jax.lax.map(step, (lp.reshape(-1, chunk, cap),
-                                 gp.reshape(-1, chunk, gk.shape[1])))
-        return jnp.where(block_valid,
-                         out.reshape(-1, cap)[:Bl].astype(jnp.int32), 0)
-
     keep_full = jnp.concatenate([jnp.zeros((Bl, 1), bool), keep], axis=1)
     gid_full = jnp.concatenate([jnp.zeros((Bl, 1), jnp.int32), gid], axis=1)
     b_idx = jnp.arange(Bl, dtype=jnp.int32)[:, None]
@@ -207,7 +127,7 @@ def noise_pack_order(block_labels, noise_mask, capacity: int):
     in reference zeroList order: per cell ascending local id, then slot
     order (FrmMain.cs:1507-1510). The stable argsort preserves slot order
     within equal keys, so the key only needs (block, local id) -- keeps it
-    int32-safe on TPU (no x64). Shared by merge_blocks and the sharded
+    int32-safe without x64. Shared by merge_blocks and the sharded
     path (each packs its own rows; device-major concatenation preserves
     the global order)."""
     B, cap = block_labels.shape
@@ -216,9 +136,8 @@ def noise_pack_order(block_labels, noise_mask, capacity: int):
     sentinel = jnp.int32(2**31 - 1)
     okey = jnp.arange(B, dtype=jnp.int32)[:, None] * kmax + block_labels
     okey = jnp.where(noise_mask, okey, sentinel).reshape(-1)
-    # one multi-operand sort carries the slot index as payload: ~6x the
-    # argsort-then-gather (probe2_r04 lax_sort_4operand 0.33 ms vs
-    # argsort 1.12 + gather 4.05 at 500k)
+    # one multi-operand sort carries the slot index as payload (no
+    # argsort-then-gather)
     idx = jnp.arange(okey.shape[0], dtype=jnp.int32)
     skey, order = jax.lax.sort((okey, idx), num_keys=1, is_stable=True)
     return order[:capacity], skey[:capacity] < sentinel
@@ -273,13 +192,9 @@ def merge_blocks(
     B, cap = block_labels.shape
     kmax = cap + 1  # local ids are < cap+1
 
-    # run counts n_{b,c}: flat segment_sum scatter-add (see
-    # _block_label_counts -- the sort+searchsorted variant lost 14x)
     counts = _block_label_counts(block_labels, block_valid, kmax)
     keep, gid, n_kept = block_keep_renumber(counts, min_cluster_size, quirks)
-    point_gid = apply_block_gid(
-        block_labels, block_valid, keep, gid,
-        max_gid=gid_bound(B, cap, min_cluster_size, quirks))
+    point_gid = apply_block_gid(block_labels, block_valid, keep, gid)
 
     # ---- noise re-cluster (FrmMain.cs:1507-1520) ----
     noise_mask = block_valid & (point_gid == 0)
@@ -290,25 +205,18 @@ def merge_blocks(
 
     cf_seed = (n_kept - 1) if quirks else n_kept
     if noise_engine == "auto":
-        # engine policy by noise capacity T (measured on v5e, r4):
-        # - T <= 8k: stored-adjacency dense (T^2 fits; fastest);
-        # - larger on TPU: chunked dense -- recompute [chunk, T] distance
-        #   tiles per sweep on the VPU. The grid engine's stencil gathers
-        #   run ~10M/s on TPU and took SECONDS at T=65k (tier-3 first
-        #   attempt); dense recompute is a few ms of vector work;
-        # - larger on CPU: the grid engine (linear work beats T^2 there)
-        #   -- unless the metric has no grid form (signed_sum_xy), where
-        #   auto must never raise: chunked dense serves any metric
-        #   (ADVICE r4 low #2).
+        # engine by noise capacity T: the stored-adjacency dense engine up
+        # to 8k (T^2 fits), above it the grid engine -- chunked dense
+        # whenever the metric has no grid form (signed_sum_xy), so auto
+        # never raises
         if noise_capacity <= 8192:
             noise_engine = "dense"
-        elif _on_tpu():
-            noise_engine = "dense_chunked"
         else:
             from .grid import grid_metric
 
             gm = grid_metric(metric, block_coords.shape[-1])
-            noise_engine = "grid" if gm is not None else "dense_chunked"
+            noise_engine = ("grid" if gm is not None
+                            else "dense_chunked")
     if noise_engine == "grid":
         from .grid import dbscan_grid, grid_metric
 

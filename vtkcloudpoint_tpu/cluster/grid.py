@@ -3,7 +3,7 @@
 BASELINE.json tier-3 path (5M-pt scan, grid-hash neighbor kernels): instead
 of the reference's block decomposition + fusion, bin points into eps-sized
 cells and restrict every neighborhood scan to the 3^D surrounding cells --
-the TPU replacement for the VTK point locator (SURVEY.md "Native components"
+the replacement for the VTK point locator (SURVEY.md "Native components"
 item 3). Works for D=2 (motor coords, 9-cell stencil) and D=3 (xyz, 27-cell
 stencil); the eps-cell stencil covers the eps-ball for both L1 and L2.
 
@@ -33,6 +33,7 @@ from itertools import product
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 # odd multiplicative constants (Knuth/xxhash-style); int32 wraparound is
 # two's-complement in XLA, and equal cell coords always hash equal, which is
@@ -44,7 +45,9 @@ _PRIMES = (-1640531535, -2048144789, -1028477387)  # 0x9E3779B1 etc. as i32
 # tests do 3^D lookups per point -- a single-hash table at 5% load turns
 # into ~37% per-point false positives and floods the skin buffers)
 _PRIMES2 = (-1898519407, -1376312589, -741103597)
-_MASK = jnp.int32(0x7FFFFFFE)  # keep ids in [0, 2^31-2]; INT_MAX = invalid
+# a NumPy scalar, not a jnp one: this module may first be imported while a
+# jit is tracing, and a jnp value made then would be that trace's tracer
+_MASK = np.int32(0x7FFFFFFE)  # keep ids in [0, 2^31-2]; INT_MAX = invalid
 
 
 def _pair_dist(a, b, metric):

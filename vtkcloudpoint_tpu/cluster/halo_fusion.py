@@ -45,7 +45,7 @@ def pack_cells(raw1, raw2, use, cap: int):
     payload becomes O(distinct cells) -- a few MB at 10M points -- where
     the table psum/pmin was 64+ MB per hash and tripped the XLA CPU
     rendezvous watchdog on oversubscribed validation hosts (and would
-    waste ICI on real pods).
+    waste interconnect bandwidth on real devices).
 
     Dedup is by the (raw1, raw2) PAIR: deduping on raw1 alone would let a
     raw1 collision between two distinct cells (expected ~100+ pairs at ~1M
@@ -194,7 +194,7 @@ def halo_buffers(block_coords, block_valid, block_labels, block_core,
         # cross-DEVICE adjacency via gathered distinct-cell lists: the
         # collective payload is O(occupied cells), not O(table) -- all-
         # reducing the [2^bits] tables (4 x 64 MB) tripped the XLA CPU
-        # rendezvous watchdog and would waste ICI on real pods
+        # rendezvous watchdog and would waste interconnect bandwidth
         dev = jax.lax.axis_index(axis)
         npts = B * cap
         list_cap = max(4096, npts // 4)

@@ -1,6 +1,6 @@
 """End-to-end single-chip clustering pipeline.
 
-The TPU-native equivalent of the reference's heavy compute job (call stack
+The data-parallel equivalent of the reference's heavy compute job (call stack
 SURVEY.md §3.2): partition -> per-block DBSCAN -> cross-block fusion ->
 optional centroid merge -> centroids + circumcircles -> radius/aspect
 rejection. Entirely on-device; the reference's ThreadPool fan-out + poll
@@ -128,7 +128,7 @@ def cluster_scan(
     # circumcircles: 3D (X, Y) and 2D motor variants (FrmMain.cs:1539-1540)
     # -- both coordinate systems ride one payload sort + one batched [2K]
     # shapes call (the index-table + per-cluster gather formulation costs
-    # two ~N-element random-access ops on TPU; see
+    # two ~N-element random-access ops; see
     # segment.bucket_payload_by_cluster)
     pay = (xyz[:, 0], xyz[:, 1], motor[:, 0], motor[:, 1])
     tabs, tval, runs, _ = bucket_payload_by_cluster(

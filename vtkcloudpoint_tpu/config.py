@@ -40,7 +40,7 @@ class ClusterConfig:
     min_cluster_size: int = 3     # clusters <= this are culled to noise (FrmMain.cs:1481)
     merge_threshold: float = 0.1  # centroid-fusion eps (Clustering.cs:127-131)
     merge_min_pts: int = 2        # centroid-fusion minPts (Tools.cs:592)
-    # Engine knobs (no reference analog - TPU capacity discipline):
+    # Engine knobs (no reference analog - static-shape capacity discipline):
     block_capacity: int = 256     # padded per-block point capacity
     max_clusters: int = 4096      # padded cluster-table capacity
     propagate_max_iters: int = 64 # label-propagation safety bound
@@ -194,8 +194,8 @@ class EngineConfig:
     icp: ICPConfig = dataclasses.field(default_factory=ICPConfig)
     slam: SLAMConfig = dataclasses.field(default_factory=SLAMConfig)
     parallel: ParallelConfig = dataclasses.field(default_factory=ParallelConfig)
-    dtype: str = "float32"        # compute dtype on TPU; oracles run float64
-    backend: str = "auto"         # kernel dispatch: auto | pallas | jnp
+    dtype: str = "float32"        # device compute dtype; oracles run float64
+    backend: str = "auto"         # per-block DBSCAN engine: auto | cuda | jnp
 
     def replace(self, **kw) -> "EngineConfig":
         return dataclasses.replace(self, **kw)

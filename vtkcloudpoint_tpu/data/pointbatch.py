@@ -1,6 +1,6 @@
 """PointBatch: struct-of-arrays point-cloud container (fixed capacity, masked).
 
-TPU-native replacement for the reference's ``Point3D``/``ClusObj`` object model
+Data-parallel replacement for the reference's ``Point3D``/``ClusObj`` object model
 (reference DataModel.cs:14-160). Everything is a flat jax.Array so the whole
 pipeline stays traceable/shardable; dynamic sizes become a ``valid`` mask over a
 static capacity (SURVEY.md §7 hard part (e)).

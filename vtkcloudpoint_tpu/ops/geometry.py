@@ -1,7 +1,7 @@
 """Cluster shape analytics: convex hull, minimal enclosing circle, min-area
 bounding rectangle.
 
-TPU-native equivalents of reference Geometry.cs / Polygon.cs:
+Data-parallel equivalents of reference Geometry.cs / Polygon.cs:
 - hull: gift wrapping with the reference's pseudo-angle ordering
   (Geometry.cs:122-246, AngleValue :210-246), vectorized as a lax.scan over a
   fixed max hull size with argmin sweeps over all cluster points.
@@ -26,13 +26,6 @@ import jax.numpy as jnp
 import numpy as _np
 
 BIG = 1e30
-
-
-def _on_tpu() -> bool:
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:  # pragma: no cover
-        return False
 
 
 def pseudo_angle(x1, y1, x2, y2):
@@ -356,8 +349,7 @@ def hull_prune_pack(pts, valid, cap_out: int, m: int = 16):
     inside it is strictly inside the convex hull and can never be a hull
     vertex. Survivors (boundary-or-outside points) pack into a
     [cap_out, 2] block for the gift-wrap sweep, whose per-step cost is
-    O(width) -- at the bench shape this cuts the sweep width 1024 -> 192
-    (probe_shapes_r05: hull 6.73 -> 1.99 ms, shapes_x2 10.91 -> 5.87 ms).
+    O(width) -- at the bench shape this cuts the sweep width 1024 -> 192.
 
     Exactness: pruning only removes provably-interior points; boundary
     points (cross == 0) and all m-gon vertices survive. Degenerate m-gons
@@ -372,10 +364,9 @@ def hull_prune_pack(pts, valid, cap_out: int, m: int = 16):
     cap = pts.shape[0]
     th = _np.linspace(0, 2 * _np.pi, m, endpoint=False)
     dirs = jnp.asarray(_np.stack([_np.cos(th), _np.sin(th)]), pts.dtype)
-    # HIGHEST: the TPU default bf16-truncates matmul inputs (~2e-3 ulp at
-    # coords ~0.5), which scrambles the argmax among points spread 1e-3
-    # apart -- the resulting "extremes" polygon missed most of the cloud
-    # and the prune kept ~70% of points (first probe_shapes_r05 attempt)
+    # HIGHEST: a reduced-precision matmul (TF32 on a GPU, ~1e-3 relative)
+    # scrambles the argmax among points spread 1e-3 apart, and the
+    # "extremes" polygon then misses most of the cloud
     proj = jnp.where(valid[:, None],
                      jnp.matmul(pts, dirs,
                                 precision=jax.lax.Precision.HIGHEST),
@@ -394,11 +385,9 @@ def hull_prune_pack(pts, valid, cap_out: int, m: int = 16):
     inside = jnp.all((cross > 0) | ~edge_ok[None, :], axis=1) & jnp.any(
         edge_ok)
     keep = valid & ~inside
-    # pack by rank-compare one-hot matmul: per-row argsort/top_k packs
-    # serialize on TPU (the first probe spent ~13 ms in the pack alone);
-    # cumsum rank + a [cap_out, cap] one-hot ride the scan unit + MXU
-    # instead. Exactly one nonzero per kept output row => f32 products
-    # are the original coordinates (same trick as fusion.apply_block_gid)
+    # pack by rank-compare one-hot matmul (cumsum rank + a [cap_out, cap]
+    # one-hot) instead of a per-row argsort/top_k. Exactly one nonzero
+    # per kept output row => f32 products are the original coordinates
     rank = jnp.cumsum(keep.astype(jnp.int32)) - 1           # [cap]
     total = jnp.sum(keep, dtype=jnp.int32)
     oh = (keep[:, None]
@@ -468,17 +457,13 @@ def min_enclosing_circle_eh(hull_pts, hull_valid, max_rounds: int = None):
     circle encloses everything while being the MEC of a subset, hence THE
     unique MEC. Exact in f64 (tests); expected rounds ~= support changes.
 
-    PROBED AND REJECTED for the production shapes stage
-    (probe_shapes_r05, v5e, bench shape [2048, 32] hulls): 12.69 ms vs
-    3.71 ms for the triple scan, AND up to 21% radius error in f32 --
-    blob hulls are NEAR-COCIRCULAR, E-H's worst case: many points sit
-    within f32 rounding of the circle, the per-round radius increase
-    drops below ULP, the support cycles, and the vmapped while_loop both
-    runs to the worst lane's round cap (slow) and exits unconverged with
-    a non-enclosing circle (wrong). The C(h,3) scan has neither failure
-    mode. Kept for f64 host-side use and as measurement evidence
-    (VERDICT r4 next item 3: probe Welzl-style MEC, keep the honest
-    outcome if it loses).
+    Not the production MEC: blob hulls are NEAR-COCIRCULAR, E-H's worst
+    case -- many points sit within f32 rounding of the circle, the
+    per-round radius increase drops below ULP, the support cycles, and the
+    vmapped while_loop both runs to the worst lane's round cap and exits
+    unconverged with a non-enclosing circle (up to 21% radius error in f32
+    at the bench shape). The C(h,3) scan has neither failure mode. Kept
+    for f64 host-side use.
     """
     h = hull_pts.shape[0]
     if max_rounds is None:
@@ -540,8 +525,8 @@ def min_area_rect(hull_pts, hull_valid):
     edge_ok = hull_valid & (elen > 0)
     u = e / jnp.maximum(elen, 1e-30)[:, None]
     v = jnp.stack([-u[:, 1], u[:, 0]], axis=-1)
-    # HIGHEST: the TPU default bf16-truncates matmul inputs; projections
-    # of coords ~0.5 would carry ~2e-3 noise into the extents
+    # HIGHEST: a reduced-precision matmul (TF32 on a GPU) would carry
+    # ~1e-3 relative noise into the extents
     pu = jnp.matmul(hull_pts, u.T,
                     precision=jax.lax.Precision.HIGHEST)
     pv = jnp.matmul(hull_pts, v.T,
@@ -569,12 +554,11 @@ def min_area_rect(hull_pts, hull_valid):
 
 @partial(jax.jit,
          static_argnames=("max_hull", "min_points", "chunk_k", "hull",
-                          "tri_chunk", "mec", "prune_cap", "backend"))
+                          "tri_chunk", "mec", "prune_cap"))
 def cluster_shapes(points, valid, counts, max_hull: int = 64,
                    min_points: int = 4, chunk_k: int = 256,
                    hull: str = "wrap", tri_chunk: int = 512,
-                   mec: str = "scan", prune_cap: int = 0,
-                   backend: str = "auto"):
+                   mec: str = "scan", prune_cap: int = 0):
     """Hull + MEC + min-rect for a batch of padded clusters.
 
     points: [K, cap, 2]; valid: [K, cap]; counts: [K] true point counts.
@@ -588,11 +572,9 @@ def cluster_shapes(points, valid, counts, max_hull: int = 64,
 
     ``hull``: "wrap" (default) = the reference-ordered gift-wrap
     (Geometry.cs parity); "quick" = batched quickhull in O(log h) rounds.
-    Despite the asymptotic edge, quick MEASURES 6.5x SLOWER on the real
-    chip at the bench shape ([1024, 1024] clusters, max_hull 32 -- 28.0 vs
-    4.3 ms, probe_stages_r04): its per-round [h]-argsort + dedupe + append
-    sequence costs more than gift-wrap's single argmin sweep, and
-    while_loop prevents XLA from pipelining rounds. Kept for max_hull
+    Despite the asymptotic edge, quick runs a per-round [h]-argsort +
+    dedupe + append sequence under a while_loop where gift-wrap does one
+    argmin sweep per step. Kept for max_hull
     truncation cases, where quick retains a SPREAD of true vertices and is
     strictly more accurate than wrap's angular-arc truncation. MEC and
     rect outputs are otherwise identical except the len0/len1 split of
@@ -601,18 +583,6 @@ def cluster_shapes(points, valid, counts, max_hull: int = 64,
 
     Returns dict of [K]-shaped circle centers/radii and rect side lengths.
     """
-    if backend == "auto":
-        backend = "pallas" if _on_tpu() else "jnp"
-    if (backend == "pallas" and hull == "wrap" and mec == "scan"
-            and not prune_cap):
-        # fused VMEM kernel: hull sweep + MEC + rect on resident data --
-        # the XLA pipeline re-reads [K, cap] from HBM every hull step
-        # (probe_shapes_r05: 2.1 vs 10.6 ms at the bench shape)
-        from .pallas.shapes_kernel import cluster_shapes_pallas
-
-        return cluster_shapes_pallas(points, valid, counts, max_hull,
-                                     min_points)
-
     hull_fn = {"wrap": convex_hull, "quick": convex_hull_quick}[hull]
 
     def one(p, v):
@@ -622,9 +592,8 @@ def cluster_shapes(points, valid, counts, max_hull: int = 64,
             povf = jnp.int32(0)
         hp, hv = hull_fn(p, v, max_hull)
         if mec == "eh":
-            # probed and REJECTED as the default: slower than the scan
-            # AND f32-fragile on near-cocircular hulls (see
-            # min_enclosing_circle_eh docstring / probe_shapes_r05)
+            # not the default: f32-fragile on near-cocircular hulls (see
+            # the min_enclosing_circle_eh docstring)
             cx, cy, r = min_enclosing_circle_eh(hp, hv)
         else:
             cx, cy, r = min_enclosing_circle(hp, hv, tri_chunk)

@@ -1,7 +1,7 @@
 """Small dense linear algebra: the reference Matrix.cs role (SURVEY.md C17).
 
 The reference ships a hand-rolled dense matrix library (LU solve/invert/det,
-Strassen multiply, Jacobi symmetric eigensolver, Matrix.cs:48-668). On TPU,
+Strassen multiply, Jacobi symmetric eigensolver, Matrix.cs:48-668). Here
 jnp.linalg covers the lapack-style pieces; what this module adds:
 
 - jacobi_eigh: a cyclic-Jacobi symmetric eigensolver that is pure elementwise
@@ -11,8 +11,8 @@ jnp.linalg covers the lapack-style pieces; what this module adds:
   Matrix.cs:636-657, are documented and NOT reproduced).
 - thin aliases for solve/inv/det so the capability mapping is explicit.
 
-Strassen multiply is intentionally absent: on the MXU a plain jnp.dot IS the
-fast path; Strassen-style recursion would fight the systolic array.
+Strassen multiply is intentionally absent: a plain jnp.dot IS the fast path
+(a library GEMM); Strassen-style recursion would only add passes.
 """
 from __future__ import annotations
 

@@ -7,8 +7,8 @@ The reference has three metrics in its two DBSCAN variants:
   the ICP correspondence metric (ICP.cs:224-250)
 
 All functions compute dense tiled distance blocks [M, N] from coordinate
-blocks; they are the innermost compute of neighbor search and are written so
-XLA maps them onto the VPU (L1) / MXU (L2 via the expansion trick).
+blocks; they are the innermost compute of neighbor search (L1 as elementwise
+vector work, L2 via the expansion trick as one matmul).
 """
 from __future__ import annotations
 
@@ -26,13 +26,13 @@ def pairwise_signed_sum(a, b):
 
 
 def pairwise_sqdist(a, b):
-    """Squared L2 block via the |a|^2 - 2ab + |b|^2 expansion (MXU-friendly).
+    """Squared L2 block via the |a|^2 - 2ab + |b|^2 expansion (one matmul).
 
-    precision=HIGHEST is load-bearing: the TPU MXU's default matmul truncates
-    inputs to bf16, and with |a|^2 ~ 10^2 the expansion's cancellation then
-    corrupts small distances by O(0.1) -- enough to return a WRONG nearest
-    neighbor. HIGHEST runs the 6-pass f32 matmul; NN results then match the
-    direct-difference form to f32 rounding."""
+    precision=HIGHEST is load-bearing: an f32 matmul with no precision may
+    run reduced (TF32 on a GPU keeps ~10 mantissa bits), and with |a|^2 ~
+    10^2 the expansion's cancellation then corrupts small distances by
+    O(0.1) -- enough to return a WRONG nearest neighbor. At HIGHEST, NN
+    results match the direct-difference form to f32 rounding."""
     import jax
 
     a2 = jnp.sum(a * a, axis=-1)[:, None]

@@ -1,7 +1,7 @@
 """Polygon utilities: centroid, area, point-in-polygon, convexity,
 triangulation.
 
-TPU-native equivalents of the reference geometry layer (Polygon.cs:24-357,
+Data-parallel equivalents of the reference geometry layer (Polygon.cs:24-357,
 SURVEY.md C16): the min-area rectangle lives in ops/geometry.py; this module
 carries the remaining polygon toolkit. Vertices are [V, 2] with a valid mask
 (vertices 0..m-1 in order); vectorized formulas replace the reference's

@@ -1,6 +1,6 @@
 """SE(3) utilities: Horn quaternion / Kabsch SVD closed-form rigid alignment.
 
-TPU-native replacement for the reference's registration solvers:
+Closed-form replacement for the reference's registration solvers:
 - production path: vtkLandmarkTransform rigid-body SVD solve inside
   vtkIterativeClosestPointTransform (FrmMain.cs:851-862)
 - managed path: Horn quaternion via 4x4 Jacobi eigensolve (ICP.cs:18-181)
@@ -17,11 +17,12 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# Every matmul here is tiny (3x3 / Nx3) but CORRECTNESS-CRITICAL: the TPU's
-# default matmul precision truncates inputs to bf16, and a 0.4% relative
-# error per R-composition/point-transform compounded across an ICP loop or
-# a 100-scan trajectory turned tier-4 odometry ATE from 1e-4 into 0.93.
-# HIGHEST forces the 6-pass f32 path; cost is negligible at these shapes.
+# Every matmul here is tiny (3x3 / Nx3) but CORRECTNESS-CRITICAL: an f32
+# matmul with no precision may run reduced (TF32 on a GPU, ~1e-3 relative),
+# and that error per R-composition/point-transform compounds across an ICP
+# loop or a 100-scan trajectory (a bf16-truncating default once turned
+# tier-4 odometry ATE from 1e-4 into 0.93). HIGHEST keeps full f32; cost is
+# negligible at these shapes.
 _HI = jax.lax.Precision.HIGHEST
 
 
@@ -107,7 +108,7 @@ def kabsch_solve(p, y, weights=None):
     mean_y = jnp.sum(y * wn, axis=0)
     h = _mm(((p - mean_p) * wn).T, (y - mean_y))
     u, _, vt = jnp.linalg.svd(h)
-    d = jnp.sign(jnp.linalg.det(vt.T @ u.T))
+    d = jnp.sign(jnp.linalg.det(_mm(vt.T, u.T)))
     s = jnp.diag(jnp.array([1.0, 1.0, d], p.dtype))
     r = _mm(_mm(vt.T, s), u.T)
     t = mean_y - _mm(r, mean_p)
@@ -157,7 +158,7 @@ def so3_exp(w):
     d/dw sqrt(w.w) at w=0 is inf and jacfwd turns inf * 0 into NaN even
     though the Taylor branch is selected. The guard constants must be
     f32-representable (an earlier 1e-300 underflowed to 0 under f32 and
-    NaN-poisoned every Gauss-Newton Jacobian on TPU)."""
+    NaN-poisoned every Gauss-Newton Jacobian in f32)."""
     theta2 = jnp.dot(w, w)
     small = theta2 <= 1e-12
     t2s = jnp.where(small, 1.0, theta2)

@@ -1,7 +1,7 @@
 """Per-cluster segment reductions: counts, centroids (3D + motor 2D), weighted
 centroids with duplicate multiplicity.
 
-TPU-native replacement for the reference's per-cluster list scans
+Data-parallel replacement for the reference's per-cluster list scans
 (Tools.getClusterCenter / GetClusList, Tools.cs:118-195; weighted fixed-point
 centroid getFixedPtsCentroid, Tools.cs:78-111): one segment_sum over the whole
 point set instead of per-cluster Average() passes.
@@ -20,14 +20,11 @@ import jax.numpy as jnp
 
 def indicator_segment_sum(values, seg, num_segments: int,
                           chunk: int = 8192, int32_tail: int = 0):
-    """segment-sum as one-hot matmuls: the MXU replacement for scatter-add.
+    """segment-sum as one-hot matmuls instead of a scatter-add.
 
-    XLA lowers jax.ops.segment_sum to a serialized scatter on TPU (~8 ms
-    for 500k points into 1k segments); an indicator matmul with full-f32
-    accumulation computes the identical sums at MXU speed (~1 ms measured
-    at the same shape). Exact: indicator entries are 0/1, products are the
-    original f32 values, accumulation is f32 (HIGHEST stops the MXU's
-    default bf16 input truncation).
+    Exact: indicator entries are 0/1, products are the original f32
+    values, accumulation is f32 (HIGHEST keeps the matmul out of reduced
+    precision -- TF32 on a GPU).
 
     ``int32_tail``: the last that-many columns accumulate ACROSS chunks in
     int32 instead of f32. A count column accumulated in f32 saturates at
@@ -129,44 +126,21 @@ def cluster_stats(xyz, motor, label, valid, num_segments: int, mult=None):
     }
 
 
-def _on_tpu() -> bool:
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:  # pragma: no cover
-        return False
-
-
 def bucket_payload_by_cluster(label, valid, payload, num_segments: int,
                               capacity: int):
-    """Per-cluster padded PAYLOAD tables built from SORTS alone (TPU).
+    """Per-cluster padded PAYLOAD tables from one sort.
 
-    The index-table path (bucket_by_cluster + a per-cluster coordinate
-    gather) costs two ~1M-element random-access ops on TPU (~8 ms each at
-    the bench shape, probe2_r04), and a direct [N, P] row scatter is worse
-    still (~23 ms measured -- a P-wide minor dim wastes 97% of each vector
-    op). lax.sort, by contrast, moves 500k rows with 5 operands in ~1 ms.
-    So on TPU the table is built with ONE sort plus WINDOWED slices:
-
-    1. two-key sort (cluster id, point index) -- payload rides along;
-       the iota second key makes the order deterministic without the 2.5x
-       cost of is_stable (probe3_r04: stable 2.44 ms vs two-key 1.03 at
-       500k x 5 operands);
-    2. each cluster's table row IS the contiguous window
-       sorted[first_c : first_c + capacity]: a vmapped dynamic_slice per
-       cluster lowers to a gather with capacity-wide slices -- S window
-       DMAs, not S*capacity scalar gathers (the element-gather and
-       scatter formulations both measured 6-21 ms here);
-    3. slots past the run length mask to zero.
+    A stable sort by cluster id carries the payload along; each point's
+    (cluster, rank) slot is then written by one scatter. (Cutting each
+    cluster's row as a window of the sorted payload instead measured 5%
+    slower on the H100 at the bench shape.)
 
     label: i32[N]; valid: bool[N]; payload: f32[N, P] or a tuple of f32[N]
-    columns (the tuple form never materializes an [N, P] array -- small
-    minor dims get 8x-padded TPU tilings). Returns
+    columns (the tuple form never materializes an [N, P] array). Returns
     (tables [num_segments, capacity, P] -- zeros in empty slots --,
     slot_valid [num_segments, capacity], counts i32[num_segments],
     overflow i32[num_segments]). Slot order within each cluster is
-    ascending point index, same contract as bucket_by_cluster. On CPU the
-    dest-slot scatter replaces steps 3-4 (linear and cache-friendly
-    there).
+    ascending point index, same contract as bucket_by_cluster.
     """
     cols = (tuple(payload[:, i] for i in range(payload.shape[1]))
             if not isinstance(payload, (tuple, list)) else tuple(payload))
@@ -175,50 +149,27 @@ def bucket_payload_by_cluster(label, valid, payload, num_segments: int,
     dtype = cols[0].dtype
     total = num_segments * capacity
     lab = jnp.where(valid, label, num_segments).astype(jnp.int32)
-
-    if not _on_tpu():
-        ops = (lab,) + cols
-        sorted_ops = jax.lax.sort(ops, num_keys=1, is_stable=True)
-        sorted_lab = sorted_ops[0]
-        first = jnp.searchsorted(sorted_lab, jnp.arange(num_segments + 1))
-        run = (first[1:] - first[:-1]).astype(jnp.int32)
-        idx = jnp.arange(n, dtype=jnp.int32)
-        rank = idx - first[jnp.clip(sorted_lab, 0, num_segments)].astype(
-            jnp.int32)
-        in_cap = (rank < capacity) & (sorted_lab < num_segments)
-        flat = jnp.where(
-            in_cap,
-            sorted_lab * capacity + jnp.clip(rank, 0, capacity - 1),
-            total,
-        )
-        sorted_pay = jnp.stack(sorted_ops[1:], axis=-1)
-        tables = (
-            jnp.zeros((total, p), dtype)
-            .at[flat].set(sorted_pay, mode="drop")
-            .reshape(num_segments, capacity, p)
-        )
-        slot_valid = (jnp.arange(capacity)[None, :]
-                      < jnp.minimum(run, capacity)[:, None])
-        return tables, slot_valid, run, jnp.maximum(run - capacity, 0)
-
-    iota = jnp.arange(n, dtype=jnp.int32)
-    out = jax.lax.sort((lab, iota, *cols), num_keys=2, is_stable=False)
-    sk = out[0]
-    first = jnp.searchsorted(sk, jnp.arange(num_segments + 1)).astype(
+    sorted_ops = jax.lax.sort((lab,) + cols, num_keys=1, is_stable=True)
+    sorted_lab = sorted_ops[0]
+    first = jnp.searchsorted(sorted_lab, jnp.arange(num_segments + 1))
+    run = (first[1:] - first[:-1]).astype(jnp.int32)
+    idx = jnp.arange(n, dtype=jnp.int32)
+    rank = idx - first[jnp.clip(sorted_lab, 0, num_segments)].astype(
         jnp.int32)
-    run = first[1:] - first[:-1]
-    starts = first[:num_segments]
+    in_cap = (rank < capacity) & (sorted_lab < num_segments)
+    flat = jnp.where(
+        in_cap,
+        sorted_lab * capacity + jnp.clip(rank, 0, capacity - 1),
+        total,
+    )
+    sorted_pay = jnp.stack(sorted_ops[1:], axis=-1)
+    tables = (
+        jnp.zeros((total, p), dtype)
+        .at[flat].set(sorted_pay, mode="drop")
+        .reshape(num_segments, capacity, p)
+    )
     slot_valid = (jnp.arange(capacity)[None, :]
                   < jnp.minimum(run, capacity)[:, None])
-
-    def windows(col):
-        colp = jnp.concatenate([col, jnp.zeros(capacity, col.dtype)])
-        rows = jax.vmap(
-            lambda s: jax.lax.dynamic_slice(colp, (s,), (capacity,))
-        )(starts)
-        return jnp.where(slot_valid, rows, 0)
-
-    tables = jnp.stack([windows(c) for c in out[2:]], axis=-1)
     return tables, slot_valid, run, jnp.maximum(run - capacity, 0)
 
 

@@ -1,7 +1,7 @@
 """NumPy oracles for cluster shape analytics.
 
 Independent implementations (monotone-chain hull; exhaustive MEC over ALL
-point pairs/triples, not just hull points) used to validate the TPU engine's
+point pairs/triples, not just hull points) used to validate the engine's
 gift-wrap + hull-candidate path. The minimal enclosing circle is unique, so
 any two correct algorithms agree to float tolerance.
 """

@@ -5,11 +5,11 @@ communication backend: none"). Here the recipe is standard JAX multi-host
 SPMD: jax.distributed.initialize on every host, one global Mesh over all
 devices, hosts feed their local shard of the point set, and the collectives
 in parallel.sharded (all_gather of fusion counts/halo shells, psum of ICP
-normal equations) ride ICI within a slice and DCN across slices.
+normal equations) ride NVLink within a host and the network across hosts.
 
 Single-host fallbacks keep every entry point usable in tests and on one
-chip; the driver validates the multi-chip program itself via
-__graft_entry__.dryrun_multichip on virtual devices.
+card; __graft_entry__.dryrun_multichip runs the multi-device program on
+virtual devices.
 """
 from __future__ import annotations
 
@@ -55,7 +55,7 @@ def initialize(coordinator: str | None = None, num_processes: int | None = None,
             raise
 
     # coordinator races at job start are the normal case (hosts come up in
-    # any order) and tunnel hiccups are transient: retry with backoff
+    # any order) and network hiccups are transient: retry with backoff
     # instead of failing the whole multi-host job on the first connect
     retry(attempts=5, backoff=2.0, exceptions=(RuntimeError, OSError))(
         init_once

@@ -127,10 +127,10 @@ def _chunked(n, chunk):
 def _dense_candidates(a_x, a_ok, eps: float, metric: str, chunk: int):
     """Dense-chunked drop-in for the grid candidate machinery: candidate
     set = ALL augmented rows, adjacency recomputed as [chunk, na] distance
-    tiles. On TPU this replaces ~na x 3^D x cell_cap random gathers per
-    sweep (grid stencils run ~10M gathers/s there) with pure VPU vector
-    work -- the same trade as cluster.dbscan.dbscan_dense_chunked. Returns
-    (order=None sentinel, cand_fn, overflow=0): cand_fn(p_slice) ->
+    tiles. This replaces ~na x 3^D x cell_cap random gathers per sweep
+    with dense vector work -- the same trade as
+    cluster.dbscan.dbscan_dense_chunked. Returns (order=None sentinel,
+    cand_fn, overflow=0): cand_fn(p_slice) ->
     (cand indices [c, na], hit mask) in ORIGINAL row order (identity
     'sorted' order, so callers' order-scatter steps become no-ops via
     order == arange)."""
@@ -168,10 +168,9 @@ def sharded_noise_recluster(
 
     ``local_engine`` picks the per-device adjacency machinery over the
     [own + foreign skin] augmented set: "grid" (stencil candidates --
-    linear work, right for CPU hosts) or "dense" (chunked distance-tile
-    recompute -- right for TPU, where the grid's random gathers cost
-    ~100x a vector op). "auto" dispatches by platform. Results are
-    bit-equal (both are exact; tested).
+    linear work) or "dense" (chunked distance-tile recompute). "auto"
+    is "grid". Results are bit-equal
+    (both are exact; tested).
     """
     capd, D = coords.shape
     dev = jax.lax.axis_index(axis)
@@ -212,11 +211,7 @@ def sharded_noise_recluster(
     na = a_x.shape[0]
 
     if local_engine == "auto":
-        try:
-            on_tpu = jax.devices()[0].platform == "tpu"
-        except Exception:  # pragma: no cover
-            on_tpu = False
-        local_engine = "dense" if on_tpu else "grid"
+        local_engine = "grid"
     if local_engine == "dense":
         order, cand_fn, grid_ovf = _dense_candidates(
             a_x, a_ok, eps, metric, chunk)

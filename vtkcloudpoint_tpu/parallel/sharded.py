@@ -255,20 +255,10 @@ def _skin_union_a2a(bx, blab, sel, n_used, eps: float, metric: str,
     hn = rx.shape[0]
     use = rok & (rlab > 0)
 
-    # component engine over the received set: same dispatch policy as the
-    # hier local stage (dense recompute <= 128k on TPU, grid elsewhere)
-    try:
-        on_tpu = jax.devices()[0].platform == "tpu"
-    except Exception:  # pragma: no cover
-        on_tpu = False
-    if on_tpu and hn <= 131072:
-        from ..cluster.dbscan import dbscan_dense_chunked
-
-        comp = dbscan_dense_chunked(rx, use, eps, 1, metric)
-        eng_ovf = jnp.int32(0)
-    else:
-        comp = dbscan_grid(rx, use, eps, 1, metric, cell_cap=cell_cap)
-        eng_ovf = comp["overflow"]
+    # component engine over the received set: grid stencils, as in the
+    # hier local stage
+    comp = dbscan_grid(rx, use, eps, 1, metric, cell_cap=cell_cap)
+    eng_ovf = comp["overflow"]
     clab = comp["label"]
     la_idx = jnp.clip(rlab, 0, max_ids - 1)
 
@@ -358,24 +348,9 @@ def _hier_union(hx, hlab, hval, n_used, eps: float,
     use = hval & (hlab > 0)
 
     # ---- stage 1: local components of the device shell ----
-    # engine dispatch mirrors the noise re-cluster policy: the grid
-    # engine's stencil candidates are random gathers (~10M/s on TPU), so
-    # up to ~128k shell points the chunked-dense recompute is the faster
-    # TPU form (O(hn^2) VPU work per sweep); past that, and on CPU
-    # hosts, the grid's linear work wins. Both are exact; dense has no
-    # cell-cap truncation so contributes 0 overflow.
-    try:
-        on_tpu = jax.devices()[0].platform == "tpu"
-    except Exception:  # pragma: no cover
-        on_tpu = False
-    if on_tpu and hn <= 131072:
-        from ..cluster.dbscan import dbscan_dense_chunked
-
-        comp = dbscan_dense_chunked(hx, use, eps, 1, metric)
-        grid_ovf = jax.lax.psum(jnp.int32(0), axis)
-    else:
-        comp = dbscan_grid(hx, use, eps, 1, metric, cell_cap=cell_cap)
-        grid_ovf = jax.lax.psum(comp["overflow"], axis)
+    # grid stencils: linear work; cell-cap truncation counts as overflow
+    comp = dbscan_grid(hx, use, eps, 1, metric, cell_cap=cell_cap)
+    grid_ovf = jax.lax.psum(comp["overflow"], axis)
     clab = comp["label"]                       # [hn] 1..K, 0 invalid
 
     def local_round(state):
@@ -524,8 +499,8 @@ def sharded_blocked_dbscan(
     device computes minutes of per-device DBSCAN before its first
     collective, and with fewer host cores than devices the workers reach
     the rendezvous farther apart than the runtime's ~2-minute collective
-    watchdog allows (TIER5_r03 attempts 4-6 died there; real ICI meshes
-    run devices in parallel and don't need this). Results are bit-equal;
+    watchdog allows; devices of a real mesh run in parallel and don't
+    need this. Results are bit-equal;
     both modes share the same fusion body.
 
     The cross-boundary noise re-cluster (FrmMain.cs:1507-1520 semantics)
@@ -554,23 +529,12 @@ def sharded_blocked_dbscan(
         halo_width_eps = pc.halo_width_eps
     gmetric = grid_metric(metric, D)
     if noise_recluster == "auto":
-        # TPU-first policy: the dense [T, T] path is pure MXU/VPU work and
-        # beats the gather-heavy grid engine up to surprisingly large T on
-        # real chips (measured 0.2 ms dense vs 60 ms grid at T=4096 on
-        # v5e -- random gathers cost ~100x an MXU MAC). Past the stored-
-        # adjacency budget, TPU switches to the chunked-dense recompute
-        # engine (tile distances per sweep -- the grid engine's stencil
-        # gathers took SECONDS at T=65k, tier-3 r4); the grid engine
-        # serves CPU hosts, where linear work wins.
+        # the stored [T, T] adjacency up to 8k gathered noise points, above
+        # it the grid engine (stored dense when the metric has no grid
+        # form)
         total_noise = ndev * noise_capacity_per_device
-        try:
-            on_tpu = jax.devices()[0].platform == "tpu"
-        except Exception:  # pragma: no cover
-            on_tpu = False
         if total_noise <= 8192:
             noise_recluster = "dense"
-        elif on_tpu:
-            noise_recluster = "dense_chunked"
         elif gmetric is not None:
             noise_recluster = "grid"
         else:
@@ -592,7 +556,7 @@ def sharded_blocked_dbscan(
     def fusion_fn(coords_loc, valid_loc, labels_loc, core_loc):
         from ..cluster.fusion import (
             _block_label_counts, apply_block_gid, block_keep_rules,
-            gid_bound, noise_pack_order,
+            noise_pack_order,
         )
 
         dev = jax.lax.axis_index(axis)
@@ -617,9 +581,7 @@ def sharded_blocked_dbscan(
             jnp.where(jnp.arange(ndev) < dev, kept_all, 0), dtype=jnp.int32)
         n_kept = jnp.sum(kept_all, dtype=jnp.int32)
         point_gid = apply_block_gid(
-            labels_loc, valid_loc, keep_loc, gid_cum + offset,
-            # gids carry the cross-device offset: guard with the GLOBAL bound
-            max_gid=gid_bound(B, cap, min_cluster_size, quirks))
+            labels_loc, valid_loc, keep_loc, gid_cum + offset)
 
         # ---- noise re-cluster across shards ----
         noise_mask = valid_loc & (point_gid == 0)
@@ -730,7 +692,7 @@ def sharded_blocked_dbscan(
 
         if centroid_merge:
             # C11 at scale (Tools.cs:580-621): psum the per-id centroid
-            # moments -- the [max_ids, 3] table is tiny on ICI -- and run
+            # moments -- the [max_ids, 3] table is tiny -- and run
             # the reference's centroid DBSCAN replicated. Deterministic
             # per mesh; vs the single-device path the psum summation
             # order can differ in float, so the contract is tolerance,
@@ -851,8 +813,8 @@ def sharded_blocked_dbscan(
             mesh=mesh,
             in_specs=(P(axis), P(axis)),
             out_specs=(P(axis), P(axis), P(axis), P(axis)),
-            # pallas_call outputs carry no varying-mesh-axes metadata; VMA
-            # checking would reject the per-shard kernel dispatch
+            # ffi_call outputs (the CUDA DBSCAN kernel) carry no
+            # varying-mesh-axes metadata; VMA checking would reject them
             check_vma=False,
         )
     )(block_coords, block_valid)
@@ -882,13 +844,8 @@ def sharded_icp_grid(
     ride a ppermute ring, correspondences resolve against per-shard
     locators (VERDICT r2 item 5; the tier-5 "50M-pt map" registration path).
 
-    nn="auto" picks the per-shard locator TPU-first: tiled BRUTE-force
-    pairwise NN on the MXU (systolic MACs -- measured 350x faster than the
-    stencil locator at 100k x 1M on v5e, where each grid candidate costs a
-    random gather ~100x an MXU MAC) unless the per-hop [q, m_loc] pair
-    count exceeds ~2^43 flops-equivalent; the grid locator takes over
-    beyond that and on CPU hosts. Both are exact, so the choice never
-    changes the transform.
+    nn="auto" is the grid locator; "brute" is tiled brute-force pairwise
+    NN. Both are exact, so the choice never changes the transform.
 
     Layout: source AND target shard over the mesh ``axis``. Each device
     builds ONE grid (register.nn_grid.build_nn_grid) over its local target
@@ -920,9 +877,7 @@ def sharded_icp_grid(
     from ..register.nn_grid import build_nn_grid, nn_grid, _brute_direct
 
     if nn == "auto":
-        on_tpu = jax.devices()[0].platform == "tpu"
-        pair_flops = (n // ndev) * (m // ndev) * 8
-        nn = "brute" if on_tpu and pair_flops <= 2**43 else "grid"
+        nn = "grid"
 
     def fn(src_loc, sv_loc, tgt_loc, tv_loc):
         dtype = src_loc.dtype
@@ -1063,8 +1018,8 @@ def sharded_icp(
             sw = jnp.sum(w_loc)
             sp = jnp.sum(p * w_loc[:, None], 0)
             sy = jnp.sum(y * w_loc[:, None], 0)
-            # HIGHEST: the TPU default bf16-truncates matmul inputs, which
-            # corrupts the Horn moments (se3.py note)
+            # HIGHEST: a reduced-precision matmul (TF32 on a GPU) corrupts
+            # the Horn moments (se3.py note)
             spy = jnp.matmul((p * w_loc[:, None]).T, y,
                              precision=jax.lax.Precision.HIGHEST)
             sd = jnp.sum(jnp.where(sv_loc, d2, 0.0))

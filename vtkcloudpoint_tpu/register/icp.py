@@ -1,4 +1,4 @@
-"""Iterative Closest Point registration (TPU-native).
+"""Iterative Closest Point registration.
 
 Replaces both reference ICP paths with one engine:
 - production native path: vtkIterativeClosestPointTransform with rigid-body
@@ -7,10 +7,11 @@ Replaces both reference ICP paths with one engine:
 - managed path: Horn quaternion loop with |d - pre_d| < e convergence on the
   summed squared correspondence distance (ICP.cs:18-181)
 
-Design: correspondence search is a tiled brute-force NN (Pallas-accelerated
-variant in ops/pallas); the closed-form SE(3) solve is Horn (eigh) or Kabsch
-(svd); the whole loop runs on-device under jax.lax.while_loop, so there is no
-host<->device ping-pong per iteration (the reference crosses the managed/
+Design: correspondence search is a tiled brute-force NN (the cross term of
+the distance expansion is one matmul at Precision.HIGHEST); the closed-form
+SE(3) solve is Horn (eigh) or Kabsch (svd); the whole loop runs on-device
+under jax.lax.while_loop, so no data crosses to the host per iteration
+(only the loop predicate, on a GPU; the reference crosses the managed/
 native boundary every call, FrmMain.cs:851-862).
 
 Multi-start extension (BASELINE.json tier 3): vmap the loop over a bank of
@@ -38,29 +39,16 @@ class ICPResult(NamedTuple):
     converged: jax.Array
 
 
-def nn_correspond(query, ref, ref_valid, chunk: int = 2048,
-                  backend: str = "auto"):
+def nn_correspond(query, ref, ref_valid, chunk: int = 2048):
     """Nearest valid reference point for each query point.
 
-    Returns (idx i32[N], sqdist f[N]). Tiled over query chunks so the [N, M]
-    distance matrix never materializes fully (SURVEY.md C18 FindClosestPointSet
-    / the VTK point-locator role). On TPU dispatches to the tiled Pallas
-    running-argmin kernel (ops.pallas.neighbor.nn_pallas, bit-equal ties).
+    Returns (idx i32[N], sqdist f[N]); ties go to the lowest reference
+    index (argmin's first minimum, the reference's sequential scan
+    ICP.cs:235-245). Tiled over query chunks so the [N, M] distance matrix
+    never materializes fully (SURVEY.md C18 FindClosestPointSet / the VTK
+    point-locator role).
     """
-    from ..cluster.dbscan import resolve_backend
-
     n = query.shape[0]
-    m = ref.shape[0]
-    # the Pallas running-argmin kernel serves the common sizes; past ~512k
-    # references its (n/tile_q) x (m/tile_r) grid walks into Mosaic
-    # grid-step territory that faulted the worker at 100k x 1M, and the
-    # jnp expansion path is the better engine there anyway (the 2ab term
-    # rides the MXU systolic array)
-    if resolve_backend(backend) == "pallas" and m <= (1 << 19):
-        from ..ops.pallas.neighbor import nn_pallas
-
-        idx, d2 = nn_pallas(query, ref, ref_valid)
-        return idx, d2.astype(query.dtype)
     bad = jnp.where(ref_valid, 0.0, jnp.inf)
 
     def one(q):
@@ -76,7 +64,7 @@ def nn_correspond(query, ref, ref_valid, chunk: int = 2048,
     return idx.reshape(-1)[:n], d2.reshape(-1)[:n]
 
 
-@partial(jax.jit, static_argnames=("cfg", "chunk", "backend"))
+@partial(jax.jit, static_argnames=("cfg", "chunk"))
 def icp(
     source,
     source_valid,
@@ -86,7 +74,6 @@ def icp(
     r0=None,
     t0=None,
     chunk: int = 2048,
-    backend: str = "auto",
 ):
     """Register source onto target: find (R, t) with target ~= R source + t.
 
@@ -114,8 +101,13 @@ def icp(
     def body(state):
         r, t, prev_d, _, it, _ = state
         p = se3.apply_rigid(r, t, source)
-        idx, d2 = nn_correspond(p, target, target_valid, chunk, backend)
+        idx, _ = nn_correspond(p, target, target_valid, chunk)
         y = target[idx]
+        # the error from each matched pair's own difference (as
+        # parallel.sharded.sharded_icp does): the expansion nn_correspond
+        # ranks by is off by ~|p|^2 ulp per pair, as large as the
+        # residuals of a converged fit
+        d2 = jnp.sum((p - y) ** 2, axis=1)
         d = jnp.sum(jnp.where(source_valid, d2, 0.0))
         r1, t1 = solve(p, y, weights=w_src)
         r_new, t_new = se3.compose(r1, t1, r, t)
@@ -131,7 +123,7 @@ def icp(
     return ICPResult(r=r, t=t, error=d, iterations=it, converged=converged)
 
 
-@partial(jax.jit, static_argnames=("iters", "chunk", "backend"))
+@partial(jax.jit, static_argnames=("iters", "chunk"))
 def ransac_init(
     source,
     source_valid,
@@ -141,7 +133,6 @@ def ransac_init(
     iters: int = 64,
     key=None,
     chunk: int = 2048,
-    backend: str = "auto",
 ):
     """Congruent-pair RANSAC for a rigid 2D-dominant init (tier-3 extension;
     addresses the reference README's checkerboard local-minimum admission).
@@ -177,7 +168,7 @@ def ransac_init(
             jnp.linalg.norm(s2 - s1) - jnp.linalg.norm(t2 - t1)
         ) < 2.0 * inlier_threshold
         moved = se3.apply_rigid(r, t, source)
-        _, d2 = nn_correspond(moved, target, target_valid, chunk, backend)
+        _, d2 = nn_correspond(moved, target, target_valid, chunk)
         inliers = jnp.sum(
             jnp.where(
                 source_valid & (d2 < inlier_threshold**2), 1.0, 0.0
@@ -190,7 +181,7 @@ def ransac_init(
     return rs[best], ts[best], scores[best]
 
 
-@partial(jax.jit, static_argnames=("cfg", "chunk", "backend"))
+@partial(jax.jit, static_argnames=("cfg", "chunk"))
 def icp_ransac(
     source,
     source_valid,
@@ -199,19 +190,18 @@ def icp_ransac(
     cfg: ICPConfig = ICPConfig(),
     key=None,
     chunk: int = 2048,
-    backend: str = "auto",
 ):
     """RANSAC init + ICP refine (cfg.ransac_iters hypotheses)."""
     r0, t0, _ = ransac_init(
         source, source_valid, target, target_valid,
         cfg.ransac_inlier_threshold, max(int(cfg.ransac_iters), 1), key,
-        chunk, backend,
+        chunk,
     )
     return icp(source, source_valid, target, target_valid, cfg,
-               r0=r0, t0=t0, chunk=chunk, backend=backend)
+               r0=r0, t0=t0, chunk=chunk)
 
 
-@partial(jax.jit, static_argnames=("cfg", "chunk", "backend"))
+@partial(jax.jit, static_argnames=("cfg", "chunk"))
 def icp_multistart(
     source,
     source_valid,
@@ -220,14 +210,13 @@ def icp_multistart(
     cfg: ICPConfig = ICPConfig(),
     key=None,
     chunk: int = 2048,
-    backend: str = "auto",
 ):
     """Multi-start ICP: cfg.num_starts initial rotations (identity + uniform
     z-spins + random), keep the lowest-error run."""
     k = max(int(cfg.num_starts), 1)
     if k == 1:
         return icp(source, source_valid, target, target_valid, cfg,
-                   chunk=chunk, backend=backend)
+                   chunk=chunk)
     dtype = source.dtype
     n_z = (k + 1) // 2
     thetas = jnp.arange(n_z, dtype=dtype) * (2.0 * jnp.pi / max(n_z, 1))
@@ -239,7 +228,7 @@ def icp_multistart(
 
     def run(r0):
         return icp(source, source_valid, target, target_valid, cfg,
-                   r0=r0, chunk=chunk, backend=backend)
+                   r0=r0, chunk=chunk)
 
     results = jax.lax.map(run, r0s)
     best = jnp.argmin(results.error)

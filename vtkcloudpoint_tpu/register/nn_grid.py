@@ -92,8 +92,8 @@ def _brute_direct(query, ref, ref_valid, chunk: int):
 
     The working set is capped at ~256 MB regardless of the requested
     chunk: the naive [chunk, M, 3] diff tensor is 12 GB at chunk=1024 and
-    M=1M -- an HBM-exhausting allocation that killed the TPU worker. The
-    per-axis accumulation keeps peak memory at one [chunk, M] block.
+    M=1M -- an allocation that exhausts device memory. The per-axis
+    accumulation keeps peak memory at one [chunk, M] block.
     """
     n, d = query.shape
     m = ref.shape[0]
@@ -241,7 +241,8 @@ def icp_grid(
                 jnp.sum(w_src), 1.0)
             mean_t = jnp.sum(target * w_tgt[:, None], 0) / jnp.maximum(
                 jnp.sum(w_tgt), 1.0)
-            t0 = mean_t - r0 @ mean_s
+            t0 = mean_t - jnp.matmul(r0, mean_s,
+                                     precision=jax.lax.Precision.HIGHEST)
         else:
             t0 = jnp.zeros(3, dtype)
 

@@ -40,8 +40,9 @@ GAUGE_WEIGHT = 1e6  # prior stiffness pinning pose 0 (matches posegraph 1e3^2)
 def _edge_residual_local(dxi, dxj, ri, ti, rj, tj, rm, tm, w):
     """Residual of one edge at local increments dxi/dxj in R^6 (w, t).
 
-    All matmuls at HIGHEST precision: the TPU default truncates to bf16,
-    and bf16 rotation chains put ~4e-3 garbage into every residual."""
+    All matmuls at HIGHEST precision: a reduced-precision default (TF32
+    on a GPU, bf16 on some accelerators) puts ~1e-3 garbage into every
+    residual through the rotation chains."""
     mm = lambda a, b: jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
     ri_new = mm(ri, se3.so3_exp(dxi[:3]))
     ti_new = ti + dxi[3:]
@@ -117,8 +118,8 @@ def _solve_spd(h, g):
 
     The gauge prior (1e6) against O(1) edge rows gives H a condition
     number ~1e6 -- at f32's 1e-7 epsilon a raw solve loses most of its
-    digits, and on TPU that made the pose-graph stage WORSE than raw
-    odometry (tier4, round 3). D^-1/2 H D^-1/2 drops the spread to the
+    digits, and that once made the pose-graph stage WORSE than raw
+    odometry. D^-1/2 H D^-1/2 drops the spread to the
     graph's intrinsic conditioning, and one refinement pass recovers the
     residual error. x64 CPU runs are unaffected (exact either way).
     """

@@ -13,7 +13,7 @@ relative transforms (from ICP). The residual for edge (i, j):
 plus a gauge prior pinning pose 0. Gauss-Newton with Levenberg damping; the
 normal equations are dense (6S x 6S; S <= a few hundred scans) and solved
 replicated. Jacobians come from jacfwd -- XLA unrolls the small per-edge
-chains onto the VPU/MXU. The JtJ assembly is a plain matmul, which is the
+chains into vector code. The JtJ assembly is a plain matmul, which is the
 piece that psum-reduces across hosts when residual blocks shard (tier 5).
 """
 from __future__ import annotations
@@ -25,6 +25,8 @@ import jax
 import jax.numpy as jnp
 
 from ..ops import se3
+
+_HI = jax.lax.Precision.HIGHEST
 
 
 class PoseGraph(NamedTuple):
@@ -78,7 +80,8 @@ def optimize_pose_graph(
     def res_of_delta(dx, rots, trans):
         dw = dx[: 3 * s].reshape(s, 3)
         dt = dx[3 * s:].reshape(s, 3)
-        r_new = jnp.einsum("sab,sbc->sac", rots, jax.vmap(se3.so3_exp)(dw))
+        r_new = jnp.einsum("sab,sbc->sac", rots, jax.vmap(se3.so3_exp)(dw),
+                           precision=_HI)
         t_new = trans + dt
         res = _residuals(r_new, t_new, graph)
         anchor = dx[jnp.array([0, 1, 2, 3 * s, 3 * s + 1, 3 * s + 2])] * 1e3
@@ -89,11 +92,13 @@ def optimize_pose_graph(
         zero = jnp.zeros(6 * s, dtype)
         r0 = res_of_delta(zero, rots, trans)
         jmat = jax.jacfwd(res_of_delta)(zero, rots, trans)
-        h = jmat.T @ jmat + damping * jnp.eye(6 * s, dtype=dtype)
-        dx = -jnp.linalg.solve(h, jmat.T @ r0)
+        h = (jnp.matmul(jmat.T, jmat, precision=_HI)
+             + damping * jnp.eye(6 * s, dtype=dtype))
+        dx = -jnp.linalg.solve(h, jnp.matmul(jmat.T, r0, precision=_HI))
         dw = dx[: 3 * s].reshape(s, 3)
         dt = dx[3 * s:].reshape(s, 3)
-        rots = jnp.einsum("sab,sbc->sac", rots, jax.vmap(se3.so3_exp)(dw))
+        rots = jnp.einsum("sab,sbc->sac", rots, jax.vmap(se3.so3_exp)(dw),
+                          precision=_HI)
         trans = trans + dt
         return (rots, trans), jnp.sum(r0 * r0)
 
@@ -108,5 +113,5 @@ def absolute_trajectory_error(r_est, t_est, r_true, t_true):
     """ATE-trans RMSE after SE(3) alignment of the two trajectories
     (the BASELINE.json acceptance metric)."""
     r_align, t_align = se3.kabsch_solve(t_est, t_true)
-    aligned = t_est @ r_align.T + t_align
+    aligned = jnp.matmul(t_est, r_align.T, precision=_HI) + t_align
     return jnp.sqrt(jnp.mean(jnp.sum((aligned - t_true) ** 2, axis=-1)))

@@ -20,6 +20,10 @@ from ..ops.voxel import voxel_downsample
 from ..register.icp import icp
 from .trajectory import Trajectory
 
+# nn="auto": brute-force NN up to this many map points, the grid locator
+# above (the crossover measured on the CPU; not yet measured on a GPU)
+BRUTE_NN_MAX_MAP = 8192
+
 
 class MapState(NamedTuple):
     points: jax.Array   # [M, 3] voxel map in world frame
@@ -43,7 +47,8 @@ def scan_to_map(
     MapState, per-scan errors). Pose of scan 0 is identity; its points seed
     the map.
 
-    nn="grid" (auto-selected for maps > 8192 points) switches the ICP
+    nn="grid" (auto-selected above ``BRUTE_NN_MAX_MAP`` map points)
+    switches the ICP
     correspondence from the O(N*M) brute scan to the grid-hash locator
     (register.nn_grid, VERDICT r1 item 2) -- the map grid rebuilds each step
     (the map changes), every query resolves exactly or falls back to brute
@@ -52,13 +57,7 @@ def scan_to_map(
     s, n, _ = scans.shape
     dtype = scans.dtype
     if nn == "auto":
-        # TPU-first: brute pairwise NN rides the MXU and beats the
-        # gather-bound grid locator far beyond 8k map points on real chips
-        # (tier3_nn_crossover records brute 0.12 s vs grid 42 s at
-        # 100k x 1M on v5e); CPUs cross over much earlier.
-        on_tpu = jax.devices()[0].platform == "tpu"
-        nn = "grid" if map_capacity > (262144 if on_tpu else 8192) \
-            else "brute"
+        nn = "grid" if map_capacity > BRUTE_NN_MAX_MAP else "brute"
     cell = float(grid_cell_size if grid_cell_size is not None
                  else 4.0 * voxel_size)
 

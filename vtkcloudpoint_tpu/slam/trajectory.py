@@ -49,7 +49,8 @@ def odometry_chain(scans, scan_valid, cfg: ICPConfig = ICPConfig()):
         rw, tw = carry
         rr, tr = rel
         # world_from_next = world_from_prev o prev_from_next (se3.compose:
-        # HIGHEST-precision matmuls -- TPU default bf16 compounds across S)
+        # HIGHEST-precision matmuls -- a reduced-precision default compounds
+        # across S)
         rn, tn = se3.compose(rw, tw, rr, tr)
         return (rn, tn), (rn, tn)
 

@@ -1,9 +1,8 @@
 """Profiling + op accounting.
 
-TPU equivalents of the reference's measurement machinery (SURVEY.md §5):
+Equivalents of the reference's measurement machinery (SURVEY.md §5):
 - Stopwatch wall-clock (FrmMain.cs:1342-1344) -> Stopwatch context manager
-  with a forced host sync (block_until_ready is not a reliable barrier on
-  every experimental backend, so we fetch data).
+  that waits for the device (block_until_ready) before reading the clock.
 - iritatorNum distance-eval counter (DBImproved.cs:12,19) -> analytic
   distance-eval accounting for the vectorized kernels (the dense formulation
   evaluates a deterministic, shape-derived count; no mutable global needed).
@@ -15,7 +14,6 @@ import contextlib
 import time
 
 import jax
-import numpy as np
 
 
 class Stopwatch:
@@ -31,10 +29,7 @@ class Stopwatch:
 
     def __exit__(self, *exc):
         if self._sync_on is not None:
-            jax.tree.map(
-                lambda a: np.asarray(a).ravel()[:1] if hasattr(a, "shape") else a,
-                self._sync_on,
-            )
+            jax.block_until_ready(self._sync_on)
         self.elapsed = time.perf_counter() - self._t0
         return False
 

@@ -2,7 +2,7 @@
 
 The reference runs compute on BackgroundWorkers with a modal progress bar
 and a poll-until-drained barrier (C28, FrmMain.cs:68-142, 1320-1399,
-WaitingForm.cs). A TPU engine's async analog: XLA dispatch is already
+WaitingForm.cs). An accelerator engine's async analog: XLA dispatch is already
 asynchronous, so "progress" is per-stage callbacks around jitted calls plus
 wall-clock accounting -- no polling, no fake ticker.
 """

@@ -3,7 +3,7 @@
 The reference has NO failure handling (SURVEY.md §5: MessageBox + swallow,
 poll-barrier with no timeout). Long tier-4/5 jobs need three primitives:
 
-- retry(): transient-failure retry with exponential backoff (device tunnel
+- retry(): transient-failure retry with exponential backoff (network
   hiccups, preempted hosts re-joining, flaky filesystem);
 - Heartbeat: a timestamp file the job touches at every unit of progress, so
   an external watchdog (or the next run) can tell "slow" from "dead";

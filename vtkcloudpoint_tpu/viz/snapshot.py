@@ -4,7 +4,7 @@ analog.
 The reference renders through VTK and offers (a) a screenshot capture
 (Tools.Screen, Tools.cs:32-54), (b) 2D motor-space views (Show2DPoints,
 FrmMain.cs:542-674), and (c) a legend panel of cluster colors/names
-(isShowLegend, FrmMain.cs:1981-2102). A headless TPU engine replaces the
+(isShowLegend, FrmMain.cs:1981-2102). A headless engine replaces the
 interactive window with deterministic raster snapshots: an orthographic
 point rasterizer -> RGB array -> PNG (pure stdlib zlib encoder, no imaging
 dependency), plus a structured legend (id, color, count, name) written as a

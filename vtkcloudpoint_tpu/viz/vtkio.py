@@ -1,7 +1,7 @@
 """Headless visualization: legacy-VTK polydata writers.
 
 The reference's visualization engine (C25-C27, SURVEY.md) is a native VTK 5.0
-render window. A TPU engine is headless, so the equivalent capability is
+render window. This engine is headless, so the equivalent capability is
 EMITTING the same scene as .vtk polydata files (points colored by cluster id,
 circumcircle outlines, match lines, region boxes) that any VTK viewer /
 ParaView renders -- replacing ShowPointsFromFile (FrmMain.cs:353-527),
